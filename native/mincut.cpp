@@ -1,12 +1,12 @@
 // Grid min-cut (max-flow) on a 4-connected image grid — host-side native
-// backend and test oracle for the TPU push-relabel kernel
+// backend and test oracle for the device push-relabel solver
 // (simplepanorama_tpu/ops/maxflow.py).
 //
 // The reference application vendors the Boykov-Kolmogorov library for this
 // role (/root/reference/src/max_flow/). This is NOT that code: it is a
 // from-scratch Dinic implementation (BFS level graph + DFS blocking flow),
 // specialized to the 4-connected grid with terminal links folded into a
-// signed per-node excess, exactly the graph encoding the TPU kernel uses.
+// signed per-node excess, exactly the graph encoding the device solver uses.
 // Exact on the same graph, so cut values can be compared bit-for-bit
 // against the data-parallel solver.
 //

@@ -1,15 +1,15 @@
-"""simplepanorama_tpu — a TPU-native panorama-stitching framework.
+"""simplepanorama_tpu — a JAX panorama-stitching framework.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the full pipeline of
+A from-scratch JAX/XLA reimplementation of the full pipeline of
 SimplePanorama (Brown & Lowe, "Automatic Panoramic Image Stitching using
 Invariant Features", IJCV 2007, plus the reference's deliberate changes:
 rootSIFT, overlap-aware match verification, a relaxed bundle-adjustment
 objective, graph-cut seams, cylindrical/stereographic projections with a
 missing-center fix, exposure-disparity fix, and auto-straightening).
 
-Design is TPU-first:
+Design:
   * every numeric kernel is a fixed-shape JAX program (vmapped/batched,
-    MXU-friendly matmuls for descriptor matching, batched RANSAC),
+    matmuls for descriptor matching, batched RANSAC),
   * bundle adjustment is a jitted Levenberg-Marquardt step with a
     Schur-complement solve whose normal-equation accumulations are
     segment-sums (psum-reducible across a device mesh),
@@ -24,22 +24,28 @@ rendering, and crop/save.
 """
 
 import os as _os
+import pathlib as _pathlib
 
-# persistent XLA compilation cache: cold compiles of the larger programs
-# (SIFT pyramid, pair verification, the fused BA while_loop, the Pallas
-# min-cut, the full-res scan) cost minutes against a remote TPU; the cache
-# makes every run after the first start in seconds. Opt out by setting
-# JAX_COMPILATION_CACHE_DIR yourself (any value, including empty).
-_os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/spt_jax_cache")
-if _os.environ["JAX_COMPILATION_CACHE_DIR"]:
-    try:  # the env var alone is not honored on every backend; the config
-        # update is (measured: a run with only the env var wrote nothing)
-        import jax as _jax
-        _jax.config.update("jax_compilation_cache_dir",
-                           _os.environ["JAX_COMPILATION_CACHE_DIR"])
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+
+def compile_cache_dir() -> str:
+    """Directory of JAX's persistent compilation cache:
+    ``$JAX_COMPILATION_CACHE_DIR`` when it is set and non-empty, else
+    ``.jax_cache`` at the root of the checkout. The path is part of the
+    cache key, so it must not move between runs."""
+    env = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    return str(_pathlib.Path(__file__).resolve().parent.parent
+               / ".jax_cache")
+
+
+def _enable_compile_cache() -> None:
+    import jax as _jax
+    _jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+
+_enable_compile_cache()
 
 from simplepanorama_tpu.config import (
     Blending,
@@ -55,6 +61,7 @@ from simplepanorama_tpu.viewer import PanoramaViewer
 __version__ = "0.1.0"
 
 __all__ = [
+    "compile_cache_dir",
     "Blending",
     "Projection",
     "Stretch",

@@ -1,7 +1,7 @@
 """Pairwise match verification -> scene adjacency.
 
 Reproduces the behavior of ``util::adj_calculator``
-(/root/reference/src/math/_homography.cpp:503-697,814-917) with a TPU-first
+(the reference's src/math/_homography.cpp:503-697,814-917) with a batched
 execution model: instead of a thread pool over (i, j) pairs, pairs are
 packed into fixed-size device batches and every stage (2-NN matching,
 RANSAC, overlap verification) is one vmapped XLA program.
@@ -151,8 +151,8 @@ def _pair_keys(master, ids):
 
 @jax.jit
 def _gather_count_args(desc, valid, qi, ti):
-    """One dispatch for the pass-1 pair gathers (4 eager gathers would
-    cost 4 round trips each on a network-attached device)."""
+    """One dispatch for the pass-1 pair gathers instead of 4 eager
+    ones."""
     return desc[qi], desc[ti], valid[qi], valid[ti]
 
 
@@ -203,7 +203,7 @@ def raw_match_counts(feats: Sequence[Features], cfg: Config,
     match tables stay ON DEVICE and are returned as
     (match_idx, match_valid, n_raw) concatenated over chunks — pair k of
     the upper-tri order sits at row k — so pass 2 never recomputes the
-    2-NN matmuls (VERDICT r4 item 5). Returns (counts, tables) in that
+    2-NN matmuls. Returns (counts, tables) in that
     case, plain counts otherwise.
 
     Multi-process: the pair list is host-sharded (the reference's
@@ -373,8 +373,7 @@ def build_adjacency(feats: Sequence[Features],
             accept, weight, H, kq, kt, kv = _verify_pairs(
                 *args, match_cap=cfg.max_matches_per_pair, **common)
         # defer the host fetch: a blocking device_get here would
-        # serialize chunk k's transfer against chunk k+1's dispatch (one
-        # ~25 ms round trip each on a network-attached device); instead
+        # serialize chunk k's transfer against chunk k+1's dispatch; instead
         # every chunk's compute is enqueued first and the results drain
         # in one pass below
         out_chunks.append((len(blk), (accept, weight, H, kq, kt, kv)))
@@ -382,8 +381,8 @@ def build_adjacency(feats: Sequence[Features],
             progress(len(blk) / total * 0.5)
 
     for nb, devs in out_chunks:
-        # ONE batched transfer for the six outputs (six eager np.asarray
-        # fetches cost six round trips on a network-attached device)
+        # ONE batched transfer for the six outputs instead of six eager
+        # np.asarray fetches
         accept, weight, H, kq, kt, kv = jax.device_get(devs)
         acc_l.append(accept[:nb])
         w_l.append(weight[:nb])

@@ -27,7 +27,7 @@ _bundle_adjust_fast.cpp):
   * anchor gauge: cameras whose rotation is identity never receive rotation
     updates (add_delta, _bundle_adjust_tools.cpp:762-771).
 
-TPU-first deviations from the reference (behavior-preserving or fixing
+Deviations from the reference (behavior-preserving or fixing
 reference bugs):
   * Jacobians come from vmapped forward-mode autodiff of the closed-form
     residual (the reference hand-derives A/B and validates them against
@@ -55,16 +55,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from simplepanorama_tpu.geometry.rotation import rodrigues
+from simplepanorama_tpu.geometry.rotation import mm, rodrigues
 
 _AUG_FOCAL = 1e-3
 _AUG_ANG = float(np.pi / 16.0)
 
 # Experimental: per-match Jacobian streams (Jd/W/Z) in bf16 with f32
-# MXU accumulation (SPT_BA_PRECISION=bf16). Measured on the real FKH360
-# BA it saved only ~2% (the iteration is op-chain-latency-bound, not
-# bandwidth-bound at these sizes), so full f32 stays the default — the
-# residual/error path is f32 either way.
+# accumulation (SPT_BA_PRECISION=bf16). At these problem sizes the LM
+# iteration is bound by its chain of small ops rather than by bandwidth,
+# so full f32 stays the default — the residual/error path is f32 either
+# way.
 _BF16 = os.environ.get("SPT_BA_PRECISION", "f32") == "bf16"
 
 
@@ -123,8 +123,8 @@ def _match_residual(cam_i, cam_j, b, q, t):
     K_i_inv = _K_inv_of(cam_i[0], cam_i[1:3])
     R_i = rodrigues(cam_i[3:6])
     R_j = rodrigues(cam_j[3:6])
-    H = K_j @ R_i.T @ R_j @ K_i_inv
-    p = H @ jnp.array([b[0], b[1], 1.0])
+    H = mm(K_j, R_i.T, R_j, K_i_inv)
+    p = mm(H, jnp.array([b[0], b[1], 1.0]))
     p2 = p[:2] / jnp.where(jnp.abs(p[2]) < 1e-12, 1e-12, p[2])
     return jnp.concatenate([t - b, q - p2])
 
@@ -138,7 +138,7 @@ def _pair_H(cam_i, cam_j):
     K_i_inv = _K_inv_of(cam_i[0], cam_i[1:3])
     R_i = rodrigues(cam_i[3:6])
     R_j = rodrigues(cam_j[3:6])
-    return K_j @ R_i.T @ R_j @ K_i_inv
+    return mm(K_j, R_i.T, R_j, K_i_inv)
 
 
 _pair_H_jac = jax.jacfwd(_pair_H, argnums=(0, 1))
@@ -172,9 +172,8 @@ def _match_geometry(Hm, b):
 
     All per-match contractions here and in _assemble are written as
     broadcast-multiply-reduce, NOT einsum/dot: a dot_general with a tiny
-    contraction dim per batch element gets padded onto 128x128 MXU tiles
-    per match on TPU, which measured ~40x slower than the fused VPU
-    elementwise form."""
+    contraction dim per batch element would be padded up to a
+    matrix-unit tile per match, where the elementwise form fuses."""
     bh = jnp.concatenate([b, jnp.ones_like(b[:, :1])], -1)
     p = (Hm * bh[:, None, :]).sum(-1)
     guard = jnp.abs(p[:, 2]) < 1e-12
@@ -210,13 +209,10 @@ def _pair_tables(data: BAData, c6, N, with_jac: bool):
 
 def _expand_rows(table: jnp.ndarray, pid: jnp.ndarray, P: int):
     """table[pid] for a (P, ...) table, as a one-hot matmul when the
-    table is small (realized-pair tables, P <= 256): XLA lowers the
-    row-gather over M~20k indices to a serialized dynamic-gather on TPU
-    (~0.55 ms per table per LM iteration at production capacity,
-    measured); the (M, P) @ (P, K) one-hot contraction is MXU work and
-    measured ~free. HIGHEST keeps it bit-clean: the one-hot operand's
-    0/1 entries are exact in every bf16 pass, so each output row is the
-    exact f32 table row."""
+    table is small (realized-pair tables, P <= 256) instead of a
+    row-gather over M~20k indices. HIGHEST keeps it bit-clean: the
+    one-hot operand's 0/1 entries are exact in every reduced-precision
+    pass, so each output row is the exact f32 table row."""
     if P > 256:
         return table[pid]
     oh = jax.nn.one_hot(pid, P, dtype=table.dtype)
@@ -277,24 +273,22 @@ def _assemble(cams: CamState, data: BAData, active_m, lam, cam_active,
     Returns (S (6N,6N), rhs (6N,), Vinv (M,2,2), W (M,6N,2), eB) — the
     last three are None in fast mode.
 
-    TPU formulation, two levels:
+    Formulation, two levels:
 
     1. The residual depends on cameras only through H(i, j), so the
        rotation/intrinsics chain and its jacfwd run once per ordered
        camera PAIR (N^2 <= ~1.3k evaluations) building H / dH/dcam
        tables; per-match work is a 9-float gather plus the projective
-       chain rule (~150 flops) — measured 10x cheaper than vmapping
-       jacfwd of the full residual over every match.
+       chain rule (~150 flops) instead of vmapping jacfwd of the full
+       residual over every match.
     2. The per-match Jacobian is block-sparse over cameras (two 2x6
        blocks on the projected-residual rows; the (t - b) rows are
        camera-independent). Instead of segment-summing 6x6 blocks into
-       camera slots — XLA lowers that scatter-add to a serialized update
-       loop on TPU, measured at <1% of HBM peak — the dense block-sparse
-       Jacobian J (M, 2, 6N) is materialized via one-hot camera masks and
-       every normal-equation term becomes ONE large MXU matmul:
+       camera slots with a scatter-add, the dense block-sparse Jacobian
+       J (M, 2, 6N) is materialized via one-hot camera masks and every
+       normal-equation term becomes ONE large matmul:
        U = J^T J, e_A = -J^T r, W = J^T B, sum Y W^T, sum Y e_B. At the
-       corpus's largest problem (N=36, M~20k) J is ~35 MB — a bargain for
-       moving the per-iteration work from scatter to the systolic array.
+       corpus's largest problem (N=36, M~20k) J is ~35 MB.
 
     With ``psum_axis`` (shard_map over match shards) the camera-system
     reductions U, e_A, sum YW^T, sum Y e_B are psummed over the axis;
@@ -315,7 +309,7 @@ def _assemble(cams: CamState, data: BAData, active_m, lam, cam_active,
 
 def _ein(spec, a, b):
     """Contraction with f32 accumulation regardless of operand dtype
-    (bf16 operands hit the MXU's native path; f32 keeps HIGHEST)."""
+    (bf16 operands take the native bf16 path; f32 keeps HIGHEST)."""
     if _BF16:
         return jnp.einsum(spec, a, b if b.dtype == a.dtype
                           else b.astype(a.dtype),
@@ -574,4 +568,4 @@ def model_homography(cams: CamState, i: int, j: int) -> jnp.ndarray:
     K_i_inv = _K_inv_of(cams.focal[i], cams.ppal[i])
     R_i = rodrigues(cams.rotvec[i])
     R_j = rodrigues(cams.rotvec[j])
-    return K_j @ R_i.T @ R_j @ K_i_inv
+    return mm(K_j, R_i.T, R_j, K_i_inv)

@@ -75,7 +75,7 @@ def _build_config(args) -> Config:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="panotpu",
-        description="TPU-native panorama stitcher (SimplePanorama rebuild)")
+        description="JAX panorama stitcher (SimplePanorama rebuild)")
     p.add_argument("images", nargs="*",
                    help="input image paths (a directory expands to the "
                         "image files inside it, like the reference's "

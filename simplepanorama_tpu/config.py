@@ -73,8 +73,8 @@ class Config:
     edgeThreshold: float = 6.0
     sigma_sift: float = 1.4142
 
-    # --- TPU-rebuild-specific knobs (fixed-shape discipline) -------------
-    # Detector keypoint capacity per image. SIFT on TPU must emit a fixed
+    # --- rebuild-specific knobs (fixed-shape discipline) -----------------
+    # Detector keypoint capacity per image. The device SIFT emits a fixed
     # number of slots; invalid slots carry a validity mask. The reference's
     # nfeatures=0 means "unlimited"; this is the static bound we pad to.
     # Capacity sensitivity (measured, tests/test_adjacency_parity.py):

@@ -9,8 +9,19 @@ fixed-shape JAX fns (lax.cond-free: jnp.where selects) so they vmap/jit.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
+
+
+def mm(*ms: jnp.ndarray) -> jnp.ndarray:
+    """Matrix product chain at full f32 precision (HIGHEST). Geometry
+    goes through this: an f32 matmul may otherwise run in TF32 on a GPU,
+    which keeps only ~3 decimal digits."""
+    return functools.reduce(
+        lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST),
+        ms)
 
 
 def rodrigues(rotvec: jnp.ndarray) -> jnp.ndarray:
@@ -21,7 +32,7 @@ def rodrigues(rotvec: jnp.ndarray) -> jnp.ndarray:
     jnp.where to stay differentiable and branch-free.
     """
     eps = 1e-8
-    theta2 = jnp.dot(rotvec, rotvec)
+    theta2 = jnp.sum(rotvec * rotvec)
     theta = jnp.sqrt(jnp.maximum(theta2, eps))
     u = rotvec / theta
     K = jnp.array([
@@ -30,7 +41,7 @@ def rodrigues(rotvec: jnp.ndarray) -> jnp.ndarray:
         [-u[1], u[0], 0.0],
     ])
     R_full = (jnp.eye(3) + jnp.sin(theta) * K
-              + (1.0 - jnp.cos(theta)) * (K @ K))
+              + (1.0 - jnp.cos(theta)) * mm(K, K))
     Kv = jnp.array([
         [0.0, -rotvec[2], rotvec[1]],
         [rotvec[2], 0.0, -rotvec[0]],
@@ -43,9 +54,9 @@ def rodrigues(rotvec: jnp.ndarray) -> jnp.ndarray:
 def orthogonalize(M: jnp.ndarray) -> jnp.ndarray:
     """Nearest rotation via SVD: R = U diag(1,1,det(UV^T)) V^T."""
     U, _, Vt = jnp.linalg.svd(M)
-    d = jnp.linalg.det(U @ Vt)
+    d = jnp.linalg.det(mm(U, Vt))
     Vt = Vt.at[2].multiply(jnp.sign(d))
-    return U @ Vt
+    return mm(U, Vt)
 
 
 def rotvec_from_matrix(R: jnp.ndarray) -> jnp.ndarray:
@@ -67,5 +78,5 @@ def approximate_rot(K_i: jnp.ndarray, K_j: jnp.ndarray,
                     H: jnp.ndarray) -> jnp.ndarray:
     """Initialize a relative rotation from a homography: the nearest rotation
     to K_j^-1 H K_i (stch::approximate_rot, _stitch.cpp:134-154)."""
-    M = jnp.linalg.solve(K_j, H @ K_i)
+    M = jnp.linalg.solve(K_j, mm(H, K_i))
     return orthogonalize(M)

@@ -6,19 +6,29 @@ check (both sides >= 300 px) and a max-side clamp to ``init_size``
 (_image.cpp:29-73), and full-res reloading of only the connected images
 (_image.cpp:76-91).
 
-Decoding runs on the host (cv2 imdecode) with a thread pool — the TPU path
-starts after decode. Images are kept BGR uint8 (reference convention) on the
-host; device code converts to float32 planes.
+Decoding runs on the host with a thread pool; the device path starts
+after decode. Images are read, written and resized by OpenCV (``cv2``),
+imported where it runs. Where cv2 is not installed, PNG still reads and
+writes through a small zlib + numpy codec (8-bit, non-interlaced,
+non-palette), so a set of PNG sources at the working size needs no
+OpenCV; every other format and any resize then raise an ImportError.
+Images are kept BGR uint8 (reference convention) on the host; device code
+converts to float32 planes.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import struct
+import zlib
 from pathlib import Path
 from typing import List, Optional, Sequence
 
-import cv2
 import numpy as np
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# PNG color type -> samples per pixel (8-bit, non-palette types only)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
 class ImageTooSmallError(RuntimeError):
@@ -37,7 +47,7 @@ def probe_size(path: str) -> Optional[tuple]:
     try:
         with open(path, "rb") as f:
             head = f.read(32)
-            if head[:8] == b"\x89PNG\r\n\x1a\n":
+            if head[:8] == _PNG_SIG:
                 w = int.from_bytes(head[16:20], "big")
                 h = int.from_bytes(head[20:24], "big")
                 return (h, w) if h > 0 and w > 0 else None
@@ -67,10 +77,113 @@ def probe_size(path: str) -> Optional[tuple]:
         return None
 
 
-def file_to_array(path: str) -> Optional[np.ndarray]:
-    """Binary read + imdecode (imgm::file_to_cv, _img_manipulation.cpp:148-174).
+def _cv2():
+    """The cv2 module, or None where OpenCV is not installed."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
 
-    Returns BGR uint8 (H, W, 3) or None on failure.
+
+def _unfilter_row(ftype: int, row: np.ndarray, prev: np.ndarray,
+                  bpp: int) -> np.ndarray:
+    """Undo one PNG scanline filter (PNG spec section 9.2); uint8 math
+    wraps modulo 256 as the spec requires."""
+    if ftype == 0:
+        return row
+    if ftype == 1:      # Sub: running sum along the row, per channel
+        return row.reshape(-1, bpp).cumsum(axis=0, dtype=np.uint8).ravel()
+    if ftype == 2:      # Up
+        return row + prev
+    if ftype not in (3, 4):
+        raise ValueError(f"bad PNG filter type {ftype}")
+    out = bytearray(row.tobytes())
+    up = prev.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if ftype == 3:  # Average
+            out[i] = (out[i] + ((a + b) >> 1)) & 0xFF
+        else:           # Paeth
+            c = up[i - bpp] if i >= bpp else 0
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[i] = (out[i] + pred) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Fallback PNG reader for hosts without cv2: decodes an 8-bit,
+    non-interlaced, non-palette PNG to BGR uint8 (H, W, 3), the layout
+    cv2.IMREAD_COLOR gives: gray is replicated and alpha dropped. Raises
+    ValueError on anything else."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"unsupported PNG (depth {depth}, color type "
+                         f"{ctype}, interlace {interlace})")
+    bpp = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = w * bpp + 1
+    if raw.size != h * stride:
+        raise ValueError("truncated PNG data")
+    rows = raw.reshape(h, stride)
+    px = np.empty((h, w * bpp), np.uint8)
+    prev = np.zeros(w * bpp, np.uint8)
+    for y in range(h):
+        prev = px[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev,
+                                     bpp)
+    px = px.reshape(h, w, bpp)
+    if bpp <= 2:
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., 2::-1])
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """Fallback PNG writer for hosts without cv2: lossless PNG of a BGR
+    uint8 (H, W, 3) or gray (H, W) image (unfiltered scanlines, zlib
+    level 6)."""
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"encode_png needs uint8 gray or BGR, got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    ctype = 0 if img.ndim == 2 else 2
+    px = img if img.ndim == 2 else img[..., ::-1]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           px.reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (_PNG_SIG
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
+                                         0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def file_to_array(path: str) -> Optional[np.ndarray]:
+    """Binary read + decode (imgm::file_to_cv, _img_manipulation.cpp:148-174).
+
+    Returns BGR uint8 (H, W, 3) or None on failure. Decodes with
+    cv2.imdecode; without cv2, PNG goes through decode_png.
     """
     try:
         buf = np.fromfile(path, dtype=np.uint8)
@@ -78,24 +191,28 @@ def file_to_array(path: str) -> Optional[np.ndarray]:
         return None
     if buf.size == 0:
         return None
-    img = cv2.imdecode(buf, cv2.IMREAD_COLOR)
-    return img
+    cv2 = _cv2()
+    if cv2 is not None:
+        return cv2.imdecode(buf, cv2.IMREAD_COLOR)
+    if buf[:8].tobytes() != _PNG_SIG:
+        raise ImportError(f"decoding {path} needs OpenCV (cv2), which is "
+                          f"not installed; only PNG reads without it")
+    try:
+        return decode_png(buf.tobytes())
+    except (ValueError, zlib.error, struct.error):
+        return None
 
 
 def resize_keep_aspect(img: np.ndarray, desired_width: int) -> np.ndarray:
     """Resize to a target width preserving aspect ratio
     (imgm::resizeKeepAspectRatio, _img_manipulation.cpp:116-145):
     INTER_AREA when shrinking, INTER_LINEAR when enlarging."""
+    import cv2
     h, w = img.shape[:2]
     scale = desired_width / w
     desired_height = int(round(h * scale))
     interp = cv2.INTER_LINEAR if desired_width > w else cv2.INTER_AREA
     return cv2.resize(img, (desired_width, desired_height), interpolation=interp)
-
-
-_REDUCED_FLAGS = {2: cv2.IMREAD_REDUCED_COLOR_2,
-                  4: cv2.IMREAD_REDUCED_COLOR_4,
-                  8: cv2.IMREAD_REDUCED_COLOR_8}
 
 
 def load_clamped(path: str, max_size: int) -> np.ndarray:
@@ -141,8 +258,10 @@ def load_clamped(path: str, max_size: int) -> np.ndarray:
         buf = np.empty(0, np.uint8)
     if buf.size == 0:
         raise RuntimeError(f"Error: Image decoding failed: {path}")
-    img = cv2.imdecode(buf, _REDUCED_FLAGS[k] if k > 1 else
-                       cv2.IMREAD_COLOR)
+    import cv2
+    reduced = {2: cv2.IMREAD_REDUCED_COLOR_2, 4: cv2.IMREAD_REDUCED_COLOR_4,
+               8: cv2.IMREAD_REDUCED_COLOR_8}
+    img = cv2.imdecode(buf, reduced.get(k, cv2.IMREAD_COLOR))
     if img is None:
         raise RuntimeError(f"Error: Image decoding failed: {path}")
     return cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_AREA)
@@ -277,15 +396,24 @@ class ImageSet:
 
 
 def save_image(path: str, img: np.ndarray) -> bool:
-    """imwrite wrapper (PNG/JPEG by extension, like the viewer's Save)."""
+    """imwrite equivalent (format by extension, like the viewer's Save);
+    without cv2, PNG is written by encode_png."""
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    return bool(cv2.imwrite(str(path), img))
+    cv2 = _cv2()
+    if cv2 is not None:
+        return bool(cv2.imwrite(str(path), img))
+    if not str(path).lower().endswith(".png"):
+        raise ImportError(f"writing {path} needs OpenCV (cv2), which is "
+                          f"not installed; only PNG writes without it")
+    Path(path).write_bytes(encode_png(np.ascontiguousarray(img)))
+    return True
 
 
 def resize_to_thumbnail(img: np.ndarray, size: int = 250) -> np.ndarray:
     """Pad-to-square thumbnail (imgm::resize_image,
     /root/reference/src/math/_img_manipulation.cpp:87-113): scale the long
     side to ``size``, pad the short side symmetrically with black."""
+    import cv2
     h, w = img.shape[:2]
     scale = size / max(h, w)
     nh, nw = max(1, int(round(h * scale))), max(1, int(round(w * scale)))
@@ -303,6 +431,7 @@ def cylinder_prewarp(img: np.ndarray, focal: float,
     imgm::project, /root/reference/src/classes/_image.cpp:168-191):
     inverse-map each output pixel through x = f*tan((u-cx)/f),
     y = (v-cy)*sqrt(x^2+f^2)/f around the image center."""
+    import cv2
     h, w = img.shape[:2]
     cx = w / 2 if center is None else center[0]
     cy = h / 2 if center is None else center[1]

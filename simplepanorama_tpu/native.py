@@ -4,7 +4,7 @@ The reference's runtime has one hard native kernel — the vendored BK
 max-flow (/root/reference/src/max_flow/). The rebuild keeps the native
 slot: native/mincut.cpp is a from-scratch Dinic grid max-flow used as
 (a) the host-side seam backend when no accelerator is attached and
-(b) the exact oracle the TPU push-relabel kernel is validated against.
+(b) the exact oracle the device push-relabel solver is validated against.
 
 The shared object is compiled with g++ on first use (no pip; the image is
 zero-egress) and cached beside the source.

@@ -1,11 +1,11 @@
-"""Euclidean distance transform on TPU via jump flooding.
+"""Euclidean distance transform on the device via jump flooding.
 
 The reference uses cv::distanceTransform(DIST_L2, DIST_MASK_5) — a 5x5
 chamfer *approximation* (e.g. /root/reference/src/math/_distance_cut.cpp:62,
-_blending.cpp:107). The TPU-native replacement is the jump-flooding
+_blending.cpp:107). The data-parallel replacement is the jump-flooding
 algorithm (JFA): O(log n) data-parallel passes, each a 9-way gather; its
 rare sub-pixel errors are smaller than the chamfer approximation the
-reference accepts. Every pass is pure elementwise/roll work on the VPU.
+reference accepts. Every pass is pure elementwise/roll work.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""GFTT (Shi-Tomasi) corner detection on TPU.
+"""GFTT (Shi-Tomasi) corner detection on the device.
 
 Capability mirror of the reference's alternative detector path
 util::extract_keypoints_detGFTT_descSIFT (/root/reference/src/math/

@@ -1,4 +1,4 @@
-"""Homography estimation on TPU: normalized DLT + batched-hypothesis RANSAC.
+"""Homography estimation on the device: normalized DLT + batched-hypothesis RANSAC.
 
 The reference runs 1500 sequential RANSAC rounds per image pair
 (util::find_homography, /root/reference/src/math/_homography.cpp:8-68).
@@ -19,6 +19,8 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+
+from simplepanorama_tpu.geometry.rotation import mm
 
 
 def apply_h(H: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
@@ -48,7 +50,7 @@ def _cholesky_solve_unrolled(A: jnp.ndarray, b: jnp.ndarray,
     """Solve SPD A x = b by a fully unrolled scalar Cholesky.
 
     Written in scalar form on purpose: under vmap every operation
-    becomes a fused elementwise op over the hypothesis batch on the VPU.
+    becomes a fused elementwise op over the hypothesis batch.
     The batched-LU `jnp.linalg.solve` this replaces lowers to a
     serialized panel loop with dynamic slicing — measured as the
     dominant cost of the whole RANSAC verify kernel (48k tiny solves
@@ -124,10 +126,10 @@ def dlt_homography(query: jnp.ndarray, train: jnp.ndarray) -> jnp.ndarray:
                     -q[:, 1] * t[:, 0], -q[:, 1] * t[:, 1]], axis=1)
     A = jnp.concatenate([rx, ry], axis=0)          # (2n, 8)
     b = jnp.concatenate([q[:, 0], q[:, 1]], axis=0)  # (2n,)
-    AtA = A.T @ A + 1e-12 * jnp.eye(8)
-    h8 = _cholesky_solve_unrolled(AtA, A.T @ b, 8)
+    AtA = mm(A.T, A) + 1e-12 * jnp.eye(8)
+    h8 = _cholesky_solve_unrolled(AtA, mm(A.T, b), 8)
     Hc = jnp.concatenate([h8, jnp.ones((1,))]).reshape(3, 3)
-    H = _similarity_inv(Tq) @ Hc @ Tt
+    H = mm(_similarity_inv(Tq), Hc, Tt)
     return H
 
 
@@ -190,8 +192,8 @@ def ransac_homography(query: jnp.ndarray,
     M = query.shape[0]
     # sample 4 distinct valid indices per hypothesis: top-4 of masked
     # uniforms, taken as 4 successive argmax passes — bit-identical to
-    # lax.top_k (same descending order, same first-occurrence ties) but
-    # avoids the per-row sort top_k lowers to on TPU
+    # lax.top_k (same descending order, same first-occurrence ties) with
+    # no per-row sort
     gumbel = jax.random.uniform(key, (n_iter, M))
     gumbel = jnp.where(valid[None, :], gumbel, -jnp.inf)
     iota = jax.lax.broadcasted_iota(jnp.int32, (n_iter, M), 1)

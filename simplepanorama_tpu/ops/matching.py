@@ -1,9 +1,9 @@
-"""Descriptor matching on TPU: all-pairs 2-NN + Lowe ratio test.
+"""Descriptor matching on the device: all-pairs 2-NN + Lowe ratio test.
 
 The reference matches each image pair with FLANN 2-NN + ratio 0.8
 (util::match_keypoints, /root/reference/src/math/_homography.cpp:416-444),
 threaded over (i, j) pairs. Here the descriptor distance computation is a
-batched matmul on the MXU: rootSIFT descriptors are unit-L2 so
+batched matmul: rootSIFT descriptors are unit-L2 so
 ``dist^2 = 2 - 2 * dot``, and the 2-NN reduces to a top-2 over dot products.
 Pairs are processed in fixed-size batches; everything is padded + masked.
 """
@@ -40,14 +40,13 @@ def match_pair_batch(desc_q: jnp.ndarray,
     """
     B, K, _ = desc_q.shape
 
-    # dot products on the MXU; invalid train cols -> -inf so top-2 skips them
+    # dot products; invalid train cols -> -inf so top-2 skips them
     dots = jnp.einsum("bqd,btd->bqt", desc_q, desc_t,
                       preferred_element_type=jnp.float32)
     dots = jnp.where(valid_t[:, None, :], dots, -jnp.inf)
 
-    # top-2 as two max/argmax passes: lax.top_k lowers to a per-row sort
-    # on TPU (measured 11.7 ms for this shape vs 2.1 ms for the matmul +
-    # two fused reduce passes — the sort alone cost 5x the whole kernel)
+    # top-2 as two max/argmax passes, which fuse into reductions where
+    # lax.top_k may lower to a per-row sort
     best = jnp.max(dots, axis=2)
     best_idx = jnp.argmax(dots, axis=2)
     t_iota = jax.lax.broadcasted_iota(jnp.int32, dots.shape, 2)

@@ -3,10 +3,10 @@
 The reference vendors the Boykov-Kolmogorov max-flow library
 (/root/reference/src/max_flow/, ~1748 LoC of pointer-chasing C++ —
 maxflow.cpp:472's grow/augment/adopt loop) — inherently sequential.
-The TPU-native replacement is lock-step push-relabel with periodic global
-relabeling (the standard GPU formulation): every phase is an elementwise
-(H, W) update with 4-neighbor shifts, so the whole solver is a single
-jitted lax.while_loop on the VPU. It converges to a minimum cut of the
+The data-parallel replacement is lock-step push-relabel with periodic
+global relabeling (the standard GPU formulation): every phase is an
+elementwise (H, W) update with 4-neighbor shifts, so the whole solver is
+a single jitted lax.while_loop. It converges to a minimum cut of the
 same graph, so seam quality matches BK exactly up to min-cut ties.
 
 Graph encoding: t-links are folded into a signed excess
@@ -24,11 +24,8 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-_INF = 1e18   # python float: usable both in XLA and inside Pallas kernels
-              # (a jnp scalar would be a captured constant there)
+_INF = 1e18
 
 
 def _shift(x, dy, dx, fill):
@@ -266,516 +263,20 @@ def grid_mincut(cap_h: jnp.ndarray, cap_v: jnp.ndarray,
                         inner_iters, sweep_iters)
 
 
-# ---------------------------------------------------------------------------
-# Pallas solver: the whole push-relabel in ONE kernel, grid in VMEM
-# ---------------------------------------------------------------------------
-# The XLA while_loop formulation pays an HBM round trip per elementwise op
-# per sweep; at seam-graph sizes the solver state (4 residual-cap planes +
-# excess + heights, ~10 MB at 500x700) fits VMEM, so one kernel launch runs
-# every BFS sweep and push phase on-chip. Measured on one TPU v5e: the
-# global-relabel BFS alone drops 1163 ms -> 10 ms at 504x704 with
-# bit-identical results; the full solver's cut values stay exact.
-
-def _shift_val(x, dy, dx, fill):
-    """result[y, x] = x[y+dy, x+dx] for an in-kernel VALUE; out-of-bounds
-    rows/cols filled with ``fill`` (same semantics as _shift)."""
-    H, W = x.shape
-    if dy == 1:
-        x = jnp.concatenate([x[1:], jnp.full((1, W), fill, x.dtype)], 0)
-    elif dy == -1:
-        x = jnp.concatenate([jnp.full((1, W), fill, x.dtype), x[:-1]], 0)
-    if dx == 1:
-        x = jnp.concatenate([x[:, 1:], jnp.full((H, 1), fill, x.dtype)], 1)
-    elif dx == -1:
-        x = jnp.concatenate([jnp.full((H, 1), fill, x.dtype), x[:, :-1]], 1)
-    return x
-
-
-_REV = (1, 0, 3, 2)
-_INF_F = 1e18
-
-
-def _mincut_kernel(caph_ref, capv_ref, excess_ref, node_ref, side_ref, *,
-                   max_outer, inner_iters, n_sweep):
-    node = node_ref[...] > 0
-    nodef = node.astype(jnp.float32)
-    cap_h = caph_ref[...] * nodef * _shift_val(nodef, 0, 1, 0.0)
-    cap_v = capv_ref[...] * nodef * _shift_val(nodef, 1, 0, 0.0)
-    caps = (cap_h, _shift_val(cap_h, 0, -1, 0.0),
-            cap_v, _shift_val(cap_v, -1, 0, 0.0))
-
-    e = jnp.where(node, excess_ref[...], 0.0)
-    cap_sum = caps[0] + caps[1] + caps[2] + caps[3] + 1.0
-    e = jnp.clip(e, -cap_sum, cap_sum)
-
-    def push_phase(st):
-        caps, e, h = st
-        caps = list(caps)
-        for k, (dy, dx) in enumerate(_DIRS):
-            h_nb = _shift_val(h, dy, dx, _INF_F)
-            admissible = (e > 0) & (h == h_nb + 1.0) & (caps[k] > 0)
-            flow = jnp.where(admissible, jnp.minimum(e, caps[k]), 0.0)
-            caps[k] = caps[k] - flow
-            back = _shift_val(flow, -dy, -dx, 0.0)
-            caps[_REV[k]] = caps[_REV[k]] + back
-            e = e - flow + back
-        min_h = jnp.full_like(h, _INF_F)
-        adm = jnp.zeros_like(h, dtype=jnp.bool_)
-        for k, (dy, dx) in enumerate(_DIRS):
-            h_nb = _shift_val(h, dy, dx, _INF_F)
-            has_cap = caps[k] > 0
-            min_h = jnp.minimum(min_h, jnp.where(has_cap, h_nb, _INF_F))
-            adm = adm | (has_cap & (h == h_nb + 1.0))
-        lift = (e > 0) & (~adm) & (min_h < _INF_F)
-        h = jnp.where(lift, min_h + 1.0, h)
-        return tuple(caps), e, h
-
-    def bfs(caps_, demand_):
-        # stacked caps view for the shared scan-BFS helper
-        return _dist_to_sink_scan(jnp.stack(caps_), demand_, node, n_sweep)
-
-    # merged BFS (see _mincut_core): one scan-BFS per outer iteration
-    # serves as next heights + previous termination check
-    def outer_body(st):
-        it, caps, e, d, _ = st
-        caps, e, h = jax.lax.fori_loop(
-            0, inner_iters, lambda _, s: push_phase(s), (caps, e, d))
-        d = bfs(caps, e < 0)
-        work_left = jnp.any((e > 0) & (d < _INF_F))
-        return it + 1, caps, e, d, work_left
-
-    def outer_cond(st):
-        it, _, _, _, work_left = st
-        return (it < max_outer) & work_left
-
-    d0 = bfs(caps, e < 0)
-    work0 = jnp.any((e > 0) & (d0 < _INF_F))
-    st = (jnp.int32(0), caps, e, d0, work0)
-    it, caps, e, d, _ = jax.lax.while_loop(outer_cond, outer_body, st)
-    side_ref[...] = ((d >= _INF_F) & node).astype(jnp.float32)
-
-
-# solver state that must fit VMEM under the raised 100 MB scoped limit:
-# ~15 live f32 planes (4 caps + e/h/d + shift temporaries) -> ~60 B/cell;
-# 704x1024 (721k cells) validated on a v5e
-_PALLAS_MAX_CELLS = 1_200_000
-
-
-@functools.partial(jax.jit, static_argnames=("max_outer", "inner_iters",
-                                             "sweep_iters", "interpret"))
-def grid_mincut_pallas(cap_h, cap_v, excess0, node,
-                       max_outer: int = 400, inner_iters: int = 30,
-                       sweep_iters: int = 0, interpret: bool = False):
-    """grid_mincut with the ENTIRE solver in one Pallas kernel (TPU).
-    Same algorithm, same cut values; ``interpret=True`` runs the kernel
-    in interpreter mode for CPU CI."""
-    H, W = cap_h.shape
-    if sweep_iters <= 0:
-        sweep_iters = H + W + 4
-    kern = functools.partial(_mincut_kernel, max_outer=max_outer,
-                             inner_iters=inner_iters, n_sweep=sweep_iters)
-    from jax.experimental import pallas as pl
-    kwargs = {}
-    if not interpret:
-        # the solver's live set (~15 f32 planes) exceeds the default 16 MB
-        # scoped-VMEM budget at production sizes; v5e has 128 MB VMEM
-        from jax.experimental.pallas import tpu as pltpu
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=127 * 1024 * 1024)
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((H, W), jnp.float32),
-        interpret=interpret,
-        **kwargs,
-    )(cap_h.astype(jnp.float32), cap_v.astype(jnp.float32),
-      excess0.astype(jnp.float32), node.astype(jnp.float32))
-    return out > 0.5
-
-
-# ---------------------------------------------------------------------------
-# Row-tiled Pallas solver: state in HBM, tiles streamed through VMEM
-# ---------------------------------------------------------------------------
-# Beyond ~1.2M cells the whole-solver state no longer fits VMEM. This
-# variant keeps the six state planes (4 residual caps, excess, heights)
-# in HBM and streams row tiles (+1 halo row each side) through VMEM
-# scratch with async DMA. Tiles are processed SEQUENTIALLY inside one
-# kernel launch, which makes cross-tile flow exact: a push from a tile's
-# edge row lands in its halo row, and the updated halo is simply stored
-# back before the neighbor tile loads it (block-asynchronous
-# push-relabel — heights read from a neighbor may be stale-low, which
-# only under-lifts a relabel and preserves the h(u) <= h(v)+1 validity
-# invariant, so the max-flow/min-cut result is unchanged). The BFS
-# global relabel runs the same min-plus doubling scans per tile, with
-# alternating down/up tile orders until a full round changes nothing.
-
-def _mincut_tiled_kernel(caph_hbm, capv_hbm, exc_hbm, node_hbm,
-                         side_hbm, c0_hbm, c1_hbm, c2_hbm, c3_hbm,
-                         e_hbm, d_hbm,
-                         tiles, flags, sems, *,
-                         n_tiles, tile_rows, width,
-                         max_outer, inner_iters, n_pass):
-    Tr, W = tile_rows, width
-    # Mosaic DMA slices must be 8-row aligned: the halo is 8 rows each
-    # side (flow only ever crosses into the first halo row per phase;
-    # the rest ride along unchanged)
-    Tv = Tr + 16
-    row = jax.lax.broadcasted_iota(jnp.int32, (Tv, W), 0)
-    interior = (row >= 8) & (row < 8 + Tr)
-
-    def dma(src, dst, sem):
-        cp = pltpu.make_async_copy(src, dst, sem)
-        cp.start()
-        cp.wait()
-
-    def load(hbm, slot, r0):
-        dma(hbm.at[pl.ds(r0, Tv)], tiles.at[slot], sems.at[slot])
-
-    def store(hbm, slot, r0):
-        dma(tiles.at[slot], hbm.at[pl.ds(r0, Tv)], sems.at[slot])
-
-    # slots: 0..3 caps, 4 e, 5 d/h, 6 node/aux
-    def load_state(r0):
-        for s, hbm in enumerate((c0_hbm, c1_hbm, c2_hbm, c3_hbm,
-                                 e_hbm, d_hbm)):
-            load(hbm, s, r0)
-        load(node_hbm, 6, r0)
-
-    def store_state(r0, slots):
-        for s, hbm in ((0, c0_hbm), (1, c1_hbm), (2, c2_hbm),
-                       (3, c3_hbm), (4, e_hbm), (5, d_hbm)):
-            if s in slots:
-                store(hbm, s, r0)
-
-    # ---- INIT: residual caps + clipped excess from the inputs ----
-    def init_tile(t, _):
-        r0 = t * Tr
-        load(caph_hbm, 0, r0)
-        load(capv_hbm, 2, r0)
-        load(node_hbm, 6, r0)
-        load(exc_hbm, 4, r0)
-        node = tiles[6] > 0
-        nodef = node.astype(jnp.float32)
-        cap_h = tiles[0] * nodef * _shift_n(nodef, 0, 1, 0.0)
-        # vertical caps couple rows: the halo rows supply the neighbors
-        cap_v = tiles[2] * nodef * _shift_n(nodef, 1, 0, 0.0)
-        c0 = cap_h
-        c1 = _shift_n(cap_h, 0, -1, 0.0)
-        c2 = cap_v
-        c3 = _shift_n(cap_v, -1, 0, 0.0)
-        cap_sum = c0 + c1 + c2 + c3 + 1.0
-        e = jnp.clip(jnp.where(node, tiles[4], 0.0), -cap_sum, cap_sum)
-        tiles[0] = c0
-        tiles[1] = c1
-        tiles[2] = c2
-        tiles[3] = c3
-        tiles[4] = e
-        tiles[5] = jnp.where((e < 0) & node, 0.0, _INF)
-        # interior-only store: halo rows belong to the neighbor tiles
-        # (their own init computes them with THEIR halos)
-        for s, hbm in ((0, c0_hbm), (1, c1_hbm), (2, c2_hbm),
-                       (3, c3_hbm), (4, e_hbm), (5, d_hbm)):
-            dma(tiles.at[s, pl.ds(8, Tr)], hbm.at[pl.ds(r0 + 8, Tr)],
-                sems.at[s])
-        return 0
-
-    jax.lax.fori_loop(0, n_tiles, init_tile, 0)
-
-    # ---- BFS to fixpoint: scan passes per tile, alternating tile order
-    def bfs_tile(t, _):
-        r0 = t * Tr
-        load_state(r0)
-        node = tiles[6] > 0
-        nodef = node.astype(jnp.float32)
-        # the two global guard rows are never written: sanitize by node
-        caps = tuple(tiles[k] * nodef for k in range(4))
-        d0 = jnp.where(node, tiles[5], _INF)
-        e_t = jnp.where(node, tiles[4], 0.0)
-        # re-seed sinks (e may have changed since d was stored)
-        d0 = jnp.minimum(d0, jnp.where((e_t < 0) & node, 0.0, _INF))
-        w_down = jnp.where(caps[3] > 0, 1.0, _INF)
-        w_up = jnp.where(caps[2] > 0, 1.0, _INF)
-        w_right = jnp.where(caps[1] > 0, 1.0, _INF)
-        w_left = jnp.where(caps[0] > 0, 1.0, _INF)
-
-        def pbody(st):
-            it, d, _ = st
-            prev = d
-            d = _minplus_scan(d, w_down, 1, 0, Tv)
-            d = _minplus_scan(d, w_up, -1, 0, Tv)
-            d = _minplus_scan(d, w_right, 0, 1, W)
-            d = _minplus_scan(d, w_left, 0, -1, W)
-            d = jnp.where(node, d, _INF)
-            return it + 1, d, jnp.any(d < prev)
-
-        def pcond(st):
-            it, _, ch = st
-            return (it < n_pass) & ch
-
-        _, d, _ = jax.lax.while_loop(pcond, pbody,
-                                     (jnp.int32(0), d0, jnp.bool_(True)))
-        changed = jnp.any(d < d0)
-        tiles[5] = d
-        dma(tiles.at[5, pl.ds(8, Tr)], d_hbm.at[pl.ds(r0 + 8, Tr)],
-            sems.at[5])
-
-        @pl.when(changed)
-        def _():
-            flags[0] = 1
-        return 0
-
-    def bfs_full():
-        # fresh seed: overwrite d with the sink indicator tile by tile
-        def seed(t, _):
-            r0 = t * Tr
-            load(e_hbm, 4, r0)
-            load(node_hbm, 6, r0)
-            node = tiles[6] > 0
-            e_t = jnp.where(node, tiles[4], 0.0)
-            tiles[5] = jnp.where((e_t < 0) & node, 0.0, _INF)
-            dma(tiles.at[5, pl.ds(8, Tr)], d_hbm.at[pl.ds(r0 + 8, Tr)],
-                sems.at[5])
-            return 0
-
-        jax.lax.fori_loop(0, n_tiles, seed, 0)
-
-        def round_body(st):
-            rnd, _ = st
-            flags[0] = 0
-
-            def down(t, _):
-                return bfs_tile(t, _)
-
-            def up(t, _):
-                return bfs_tile(n_tiles - 1 - t, _)
-
-            jax.lax.cond(rnd % 2 == 0,
-                         lambda: jax.lax.fori_loop(0, n_tiles, down, 0),
-                         lambda: jax.lax.fori_loop(0, n_tiles, up, 0))
-            return rnd + 1, flags[0] > 0
-
-        def round_cond(st):
-            rnd, ch = st
-            return (rnd < n_pass) & ch
-
-        jax.lax.while_loop(round_cond, round_body,
-                           (jnp.int32(0), jnp.bool_(True)))
-
-    # ---- one push-relabel phase over all tiles (sequential, exact) ----
-    # Tiles whose interior holds no positive excess are SKIPPED after a
-    # 2-plane peek (pushes only originate at e>0 interior nodes; a
-    # receiving-only tile is updated by its neighbor's halo store) — on a
-    # converging solve most tiles are idle most phases, so this turns the
-    # full 13-DMA tile-phase into a cheap excess check.
-    def push_tile(t, _):
-        r0 = t * Tr
-        load(e_hbm, 4, r0)
-        load(node_hbm, 6, r0)
-        node0 = tiles[6] > 0
-        e_peek = jnp.where(node0, tiles[4], 0.0)
-        tile_active = jnp.any(interior & (e_peek > 0))
-
-        @pl.when(tile_active)
-        def _():
-            _push_tile_body(r0)
-        return 0
-
-    def _push_tile_body(r0):
-        for s, hbm in ((0, c0_hbm), (1, c1_hbm), (2, c2_hbm),
-                       (3, c3_hbm), (5, d_hbm)):
-            load(hbm, s, r0)
-        node = tiles[6] > 0
-        nodef = node.astype(jnp.float32)
-        caps = [tiles[k] * nodef for k in range(4)]
-        e = jnp.where(node, tiles[4], 0.0)
-        h = jnp.where(node, tiles[5], _INF)
-        for k, (dy, dx) in enumerate(_DIRS):
-            h_nb = _shift_n(h, dy, dx, _INF)
-            adm = interior & (e > 0) & (h == h_nb + 1.0) & (caps[k] > 0)
-            flow = jnp.where(adm, jnp.minimum(e, caps[k]), 0.0)
-            caps[k] = caps[k] - flow
-            back = _shift_n(flow, -dy, -dx, 0.0)
-            caps[_REV[k]] = caps[_REV[k]] + back
-            e = e - flow + back
-        min_h = jnp.full_like(h, _INF)
-        adm_any = jnp.zeros_like(h, dtype=jnp.bool_)
-        for k, (dy, dx) in enumerate(_DIRS):
-            h_nb = _shift_n(h, dy, dx, _INF)
-            has = caps[k] > 0
-            min_h = jnp.minimum(min_h, jnp.where(has, h_nb, _INF))
-            adm_any = adm_any | (has & (h == h_nb + 1.0))
-        lift = interior & (e > 0) & (~adm_any) & (min_h < _INF)
-        h = jnp.where(lift, min_h + 1.0, h)
-        tiles[0], tiles[1], tiles[2], tiles[3] = caps
-        tiles[4] = e
-        tiles[5] = h
-        # store the FULL local view: halo rows carry the cross-tile flow
-        # (received excess + reverse capacity) to the neighbor tiles
-        store_state(r0, (0, 1, 2, 3, 4, 5))
-
-    # ---- outer loop: pushes then BFS; BFS doubles as termination ----
-    def check_tile(t, _):
-        r0 = t * Tr
-        load(e_hbm, 4, r0)
-        load(d_hbm, 5, r0)
-        load(node_hbm, 6, r0)
-        node_i = tiles[6][8:Tr + 8] > 0
-        work = jnp.any(node_i & (tiles[4][8:Tr + 8] > 0)
-                       & (tiles[5][8:Tr + 8] < _INF))
-
-        @pl.when(work)
-        def _():
-            flags[1] = 1
-        return 0
-
-    def outer_body(st):
-        it, _ = st
-
-        def phase(p, _):
-            return jax.lax.fori_loop(0, n_tiles, push_tile, 0) * 0
-
-        jax.lax.fori_loop(0, inner_iters, phase, 0)
-        bfs_full()
-        flags[1] = 0
-        jax.lax.fori_loop(0, n_tiles, check_tile, 0)
-        return it + 1, flags[1] > 0
-
-    def outer_cond(st):
-        it, work = st
-        return (it < max_outer) & work
-
-    bfs_full()
-    flags[1] = 0
-    jax.lax.fori_loop(0, n_tiles, check_tile, 0)
-    jax.lax.while_loop(outer_cond, outer_body,
-                       (jnp.int32(0), flags[1] > 0))
-
-    # ---- final side: unreachable-from-sink nodes ----
-    def side_tile(t, _):
-        r0 = t * Tr
-        load(d_hbm, 5, r0)
-        load(node_hbm, 6, r0)
-        side = ((tiles[5] >= _INF) & (tiles[6] > 0)).astype(jnp.float32)
-        tiles[4] = side
-        dma(tiles.at[4, pl.ds(8, Tr)], side_hbm.at[pl.ds(r0 + 8, Tr)],
-            sems.at[4])
-        return 0
-
-    jax.lax.fori_loop(0, n_tiles, side_tile, 0)
-
-
-def grid_mincut_pallas_tiled(cap_h, cap_v, excess0, node,
-                             max_outer: int = 400, inner_iters: int = 30,
-                             sweep_iters: int = 0,
-                             tile_rows: int = 512,
-                             interpret: bool = False):
-    """grid_mincut for grids beyond VMEM: HBM-resident state, row tiles
-    streamed through VMEM scratch (one kernel launch)."""
-    from jax.experimental import pallas as _pl
-
-    H, W = cap_h.shape
-    Wp = (W + 127) // 128 * 128
-    Tr = min(tile_rows, (H + 7) // 8 * 8)
-    T = (H + Tr - 1) // Tr
-    H2 = T * Tr + 16
-    if sweep_iters <= 0:
-        sweep_iters = H + W + 4
-
-    def padp(x, fill=0.0):
-        return jnp.pad(x.astype(jnp.float32),
-                       ((8, H2 - 8 - H), (0, Wp - W)),
-                       constant_values=fill)
-
-    args = (padp(cap_h), padp(cap_v), padp(excess0), padp(node))
-    kern = functools.partial(
-        _mincut_tiled_kernel, n_tiles=T, tile_rows=Tr, width=Wp,
-        max_outer=max_outer, inner_iters=inner_iters, n_pass=sweep_iters)
-    out_shapes = [jax.ShapeDtypeStruct((H2, Wp), jnp.float32)] * 7
-    from jax.experimental.pallas import tpu as pltpu_
-    kwargs = dict(
-        out_shape=out_shapes,
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 4,
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 7,
-        scratch_shapes=[
-            pltpu_.VMEM((7, Tr + 16, Wp), jnp.float32),
-            pltpu_.SMEM((2,), jnp.int32),
-            pltpu_.SemaphoreType.DMA((7,)),
-        ],
-        interpret=interpret,
-    )
-    if not interpret:
-        kwargs["compiler_params"] = pltpu_.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024)
-    outs = _pl.pallas_call(kern, **kwargs)(*args)
-    side = outs[0]
-    return side[8:H + 8, :W] > 0.5
-
-
-@functools.partial(jax.jit, static_argnames=("max_outer", "inner_iters",
-                                             "sweep_iters", "tile_rows",
-                                             "interpret"))
-def _tiled_jit(cap_h, cap_v, excess0, node, max_outer, inner_iters,
-               sweep_iters, tile_rows, interpret):
-    return grid_mincut_pallas_tiled(cap_h, cap_v, excess0, node,
-                                    max_outer, inner_iters, sweep_iters,
-                                    tile_rows, interpret)
-
-
-def _node_bbox(node_np, H, W, row_pad=8, col_pad=128):
-    """Aligned bounding box of the node set (r0, r1, c0, c1), or None if
-    empty. The reference's BK graph also only contains union-mask nodes
-    (graph_object ctor); everything outside is structurally irrelevant to
-    the cut, so solving the crop is exact."""
-    r = node_np.any(axis=1)
-    c = node_np.any(axis=0)
-    if not r.any():
-        return None
-    r0 = int(np.argmax(r))
-    r1 = H - int(np.argmax(r[::-1]))
-    c0 = int(np.argmax(c))
-    c1 = W - int(np.argmax(c[::-1]))
-    r0 = max(0, r0 - 1) // row_pad * row_pad
-    c0 = max(0, c0 - 1) // col_pad * col_pad
-    r1 = min(H, (r1 + row_pad) // row_pad * row_pad)
-    c1 = min(W, (c1 + col_pad) // col_pad * col_pad)
-    return r0, r1, c0, c1
-
-
-def grid_mincut_auto(cap_h, cap_v, excess0, node, **kw):
-    """Backend dispatch: the single-launch in-VMEM Pallas kernel on TPU
-    when the solver state fits, the row-tiled HBM-resident kernel for
-    larger grids, the XLA while_loop formulation elsewhere.
-
-    Concrete (non-traced) big grids are first cropped to the node
-    bounding box — real seam graphs are overlap BANDS inside the padded
-    ROI, so the crop usually lands back in the in-VMEM kernel's range."""
-    H, W = cap_h.shape
-    if jax.default_backend() == "tpu":
-        if H * W <= _PALLAS_MAX_CELLS:
-            return grid_mincut_pallas(cap_h, cap_v, excess0, node, **kw)
-        if not isinstance(node, jax.core.Tracer):
-            bbox = _node_bbox(np.asarray(node) > 0, H, W)
-            if bbox is not None:
-                r0, r1, c0, c1 = bbox
-                if (r1 - r0) * (c1 - c0) <= 0.9 * H * W:
-                    args = (cap_h[r0:r1, c0:c1], cap_v[r0:r1, c0:c1],
-                            excess0[r0:r1, c0:c1], node[r0:r1, c0:c1])
-                    # conservative in-VMEM predicate: near-limit or
-                    # very TALL shapes (measured: 2000x512 fails where
-                    # 896x1280 fits) can fail the Mosaic stack allocator
-                    # after MINUTES of compile, and failed compiles are
-                    # never cached
-                    if ((r1 - r0) * (c1 - c0) <= _PALLAS_MAX_CELLS
-                            and (r1 - r0) <= 1200):
-                        sub = grid_mincut_pallas(*args, **kw)
-                    else:
-                        sub = _tiled_jit(
-                            *args, kw.get("max_outer", 400),
-                            kw.get("inner_iters", 30),
-                            kw.get("sweep_iters", 0), 512, False)
-                    full = jnp.zeros((H, W), bool)
-                    return jax.lax.dynamic_update_slice(full, sub, (r0, c0))
-        return _tiled_jit(cap_h, cap_v, excess0, node,
-                          kw.get("max_outer", 400),
-                          kw.get("inner_iters", 30),
-                          kw.get("sweep_iters", 0), 512, False)
-    return grid_mincut(cap_h, cap_v, excess0, node, **kw)
+def cut_value(cap_h, cap_v, excess, node, source_side) -> float:
+    """Host (numpy) cost of the cut that ``source_side`` induces on the
+    grid_mincut graph: grid edges between the two sides plus the t-links
+    lost (source excess on the sink side, sink demand on the source
+    side). Lets any two solvers' cuts be compared by value, since ties
+    in the cut set are allowed."""
+    cap_h, cap_v, excess = (np.asarray(a, np.float64)
+                            for a in (cap_h, cap_v, excess))
+    node = np.asarray(node, bool)
+    S = np.asarray(source_side, bool) & node
+    T = ~np.asarray(source_side, bool) & node
+    cross_h = ((S[:, :-1] & T[:, 1:]) | (T[:, :-1] & S[:, 1:]))
+    cross_v = ((S[:-1, :] & T[1:, :]) | (T[:-1, :] & S[1:, :]))
+    cost = cap_h[:, :-1][cross_h].sum() + cap_v[:-1, :][cross_v].sum()
+    cost += np.where(T, np.maximum(excess, 0), 0).sum()
+    cost += np.where(S, np.maximum(-excess, 0), 0).sum()
+    return float(cost)

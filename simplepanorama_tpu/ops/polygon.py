@@ -5,7 +5,7 @@ with the H-projected image-2 rect and counting keypoints/matches inside
 (keypoints_in_overlap_centered, /root/reference/src/math/_homography.cpp:
 448-500, using cv::intersectConvexConvex + cv::pointPolygonTest).
 
-TPU version: the clip region is an axis-aligned rect, so the intersection is
+Device version: the clip region is an axis-aligned rect, so the intersection is
 a Sutherland–Hodgman clip of the projected quad by 4 half-planes with a
 static vertex buffer (quad ∩ rect has at most 8 vertices), and the point
 counts need no polygon at all — a point is inside the intersection iff it is

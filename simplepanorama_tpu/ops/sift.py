@@ -1,10 +1,11 @@
-"""SIFT on TPU: DoG scale-space detector + descriptor as a fixed-shape JAX
+"""SIFT on the device: DoG scale-space detector + descriptor as a fixed-shape JAX
 program.
 
 The reference delegates to OpenCV's SIFT and post-processes to rootSIFT with
 center-origin keypoints (util::extract_keypoints,
 /root/reference/src/math/_homography.cpp:727-751). Here the whole detector
-runs on-device, redesigned for TPU execution rather than translated:
+runs on-device, redesigned for batched fixed-shape execution rather than
+translated:
 
   * the Gaussian pyramid is built with separable depthwise convolutions
     (static kernel sizes — sigmas are trace-time constants);
@@ -18,7 +19,7 @@ runs on-device, redesigned for TPU execution rather than translated:
     OpenCV's variable-radius pixel loops, a fixed SxS grid in the keypoint
     frame is bilinearly sampled from the octave image, and the 4x4x8
     histogram is accumulated with one einsum (static trilinear spatial
-    weights x data-dependent orientation weights) — MXU-friendly;
+    weights x data-dependent orientation weights) — a matmul;
   * descriptors are rootSIFT-normalized (L1 + sqrt, convert_to_rootsift,
     _homography.cpp:700-724), so matching distances reduce to dot products.
 
@@ -134,7 +135,7 @@ def _blur_multi(base: jnp.ndarray, sigmas: List[float]) -> jnp.ndarray:
 
     base: (N, H, W) batch of octave bases. Returns (N, L, H, W) where
     level l is base blurred by sigmas[l]. The horizontal pass is a dense
-    1->L-channel conv (MXU-tileable); the vertical pass is a depthwise
+    1->L-channel conv; the vertical pass is a depthwise
     conv over the L level-channels. This replaces the reference-shaped
     chain of ~2(L-1) single-channel convs per octave per image with two
     batched ops — the difference between ~120 tiny dispatches and ~10
@@ -185,11 +186,11 @@ def _dense_refine(dog: jnp.ndarray, n_layers: int, contrast_thresh: float,
     """DENSE sub-pixel refinement of the whole DoG stack (OpenCV
     adjustLocalExtrema math on a 0..255 scale).
 
-    TPU-first restructuring: instead of per-candidate neighborhood
+    Fixed-shape restructuring: instead of per-candidate neighborhood
     gathers (which this backend lowers to per-candidate broadcasts of the
     whole pyramid — 34 GB for 1024 candidates), every derivative, the
     3x3 closed-form solve, the contrast and the edge test are computed as
-    elementwise stencil maps over (L, H, W) — pure VPU work. Candidates
+    elementwise stencil maps over (L, H, W). Candidates
     whose quadratic-fit offset exceeds 0.5 would move to a neighboring
     pixel in OpenCV's loop; here they are rejected, and the neighboring
     pixel's own fit (computed anyway, densely) takes over — the accepted
@@ -283,11 +284,10 @@ def grad_stack(level_imgs: jnp.ndarray) -> jnp.ndarray:
     Precomputing gradients densely (cheap shifted subtractions) lets the
     per-keypoint pass bilinearly sample dx/dy directly; packing the
     vertical pair halves the gather count again — one row gather yields
-    BOTH bilinear corners of a column (the per-keypoint sampling is
-    gather-THROUGHPUT-bound on TPU: ~13 M two-element row gathers per
-    6-image chunk measured 176 ms of a 320 ms extraction; rows are tiny,
-    so cost is per row, not per byte). bf16 halves gather bytes; the
-    descriptor normalizes away the precision loss."""
+    BOTH bilinear corners of a column (the per-keypoint sampling issues
+    ~13 M tiny row gathers per 6-image chunk, so fewer rows means fewer
+    gathers). bf16 halves gather bytes; the descriptor normalizes away
+    the precision loss."""
     z = jnp.zeros_like(level_imgs[..., :, :1])
     dx = jnp.concatenate([z, level_imgs[..., :, 2:] - level_imgs[..., :, :-2],
                           z], axis=-1)
@@ -682,7 +682,7 @@ def extract_sift_batch(imgs_u8: jnp.ndarray,
     less host->device traffic than f32 gray). The Gaussian pyramid — the
     dominant cost — is built for the WHOLE batch with two large convs per
     octave (_blur_multi); the per-image detector/descriptor core is then
-    vmapped over the batch. This is the TPU replacement for the
+    vmapped over the batch. This is the device replacement for the
     reference's one-async-task-per-image fan-out (_image.cpp:125-149).
     """
     N, H, W, _ = imgs_u8.shape

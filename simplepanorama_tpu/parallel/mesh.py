@@ -2,7 +2,7 @@
 
 The reference's parallelism is a single-process thread pool
 (std::async over images, std::thread over (i,j) pairs, OpenMP over match
-chunks — SURVEY §2.7). The TPU equivalents are device-mesh axes:
+chunks — SURVEY §2.7). The device equivalents are mesh axes:
 
   * ``images``/``pairs``: data-parallel batch axes for SIFT extraction and
     pair verification (independent work, no collectives);

@@ -48,8 +48,8 @@ def halo_exchange(x: jnp.ndarray, halo: int, axis: str,
     neighbor (``fill`` at the mesh ends). Must run inside shard_map over
     ``axis``; x is the local (H, Ws, ...) slab, returns (H, Ws+2*halo, ...).
 
-    The ppermute pair is the TPU idiom for stencil boundaries: each device
-    sends its edge columns one hop left and one hop right over ICI.
+    The ppermute pair is the collective idiom for stencil boundaries: each
+    device sends its edge columns one hop left and one hop right.
     """
     n = jax.lax.axis_size(axis)
     left_edge = jax.lax.slice_in_dim(x, 0, halo, axis=1)

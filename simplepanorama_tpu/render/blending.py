@@ -221,15 +221,14 @@ def blend(method: str,
           bands: int = 2, sigma: float = 7.0) -> np.ndarray:
     """Dispatch like stitch_parameters::get_preview. Returns float32
     (H, W, 3) on the 0..255 scale."""
-    from simplepanorama_tpu.utils.transfer import fetch_slabs
     imgs, seams, offs, hw = pack_blocks(images, seam_masks, corners)
     if method == "NO_BLEND":
-        return fetch_slabs(no_blend(imgs, seams, offs, hw))
+        return np.asarray(no_blend(imgs, seams, offs, hw))
     if method == "SIMPLE_BLEND":
-        return fetch_slabs(simple_blend(imgs, seams, offs, hw))
+        return np.asarray(simple_blend(imgs, seams, offs, hw))
     if method == "MULTI_BLEND":
         _, origs, _, _ = pack_blocks(
             [np.zeros_like(im) for im in images], orig_masks, corners)
-        return fetch_slabs(multi_blend(imgs, seams, origs, offs, hw,
-                                       bands=bands, sigma=float(sigma)))
+        return np.asarray(multi_blend(imgs, seams, origs, offs, hw,
+                                      bands=bands, sigma=float(sigma)))
     raise ValueError(f"unknown blend method {method}")

@@ -8,7 +8,7 @@ the flat-panorama use of imgm::calc_stitch_from_adj / pan_img_transform
 (_img_manipulation.cpp:281-390) — the projective composite the reference
 builds before bundle adjustment replaces it with rotations.
 
-TPU-first: the warp is one jitted backward-map gather per destination ROI
+Design: the warp is one jitted backward-map gather per destination ROI
 (bilinear, fixed output shape); compositing pastes in chain order.
 """
 

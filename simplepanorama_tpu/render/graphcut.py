@@ -33,7 +33,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from simplepanorama_tpu.ops.maxflow import grid_mincut, grid_mincut_auto
+from simplepanorama_tpu.ops.maxflow import grid_mincut
 from simplepanorama_tpu.geometry.canvas import get_pan_dimension
 
 _SEED_W = 5000.0
@@ -111,9 +111,7 @@ def _solve_cut(wh, wv, excess, obj, mask2):
             grid_mincut_sharded
         side = grid_mincut_sharded(wh, wv, excess, obj, mesh)
     else:
-        # single accelerator: whole-solver Pallas kernel when the state
-        # fits VMEM, XLA while_loop otherwise
-        side = grid_mincut_auto(wh, wv, excess, obj)
+        side = grid_mincut(wh, wv, excess, obj)
     return jnp.where(obj, side, mask2 > 0)
 
 
@@ -187,7 +185,7 @@ def graph_cut(images: Sequence[np.ndarray],
 # ---------------------------------------------------------------------------
 # The host loop above performs one device dispatch + a FULL host sync
 # (np.asarray(cut)) + a host canvas update per image — on a 36-image
-# sequence that is 35 serialized RTT-bound solves. Here the grayscale
+# sequence that is 35 serialized solves. Here the grayscale
 # canvas and scene mask stay ON DEVICE: each image is one enqueued
 # _cut_step dispatch whose output feeds the next step's input as a device
 # future, so the host loop runs ahead and the chain pipelines (the same
@@ -206,7 +204,7 @@ def _cut_step(canvas_g, scene, gray_b, mask_b, off):
     wh, wv, excess, obj = _build_cut_graph(
         pano_roi, gray_b, scene_roi.astype(jnp.float32) * 255.0,
         mask_b.astype(jnp.float32) * 255.0)
-    side = grid_mincut_auto(wh, wv, excess, obj)
+    side = grid_mincut(wh, wv, excess, obj)
     cut = jnp.where(obj, side, mask_b)
     canvas_g = jax.lax.dynamic_update_slice(
         canvas_g, jnp.where(cut, gray_b, pano_roi), (off[0], off[1]))

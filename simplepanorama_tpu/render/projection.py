@@ -2,7 +2,7 @@
 
 Capability mirror of proj::{spherical,cylindrical,sten}_proj
 (/root/reference/src/math/_projection.cpp) which wrap OpenCV's
-detail::RotationWarper family. The TPU design splits the work:
+detail::RotationWarper family. The design splits the work:
 
   * host (numpy, tiny): forward-map each image's border to find its
     destination ROI (OpenCV detectResultRoi semantics) — ROIs are shape
@@ -29,6 +29,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from simplepanorama_tpu.geometry.rotation import mm
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +130,7 @@ def _source_coords(K_adj: jnp.ndarray, R: jnp.ndarray, corner: jnp.ndarray,
     u = (xx + corner[0]) / scale
     v = (yy + corner[1]) / scale
     dx, dy, dz = bwd(u, v, jnp)
-    M = K_adj @ R.T                       # k_rinv
+    M = mm(K_adj, R.T)                    # k_rinv
     px = M[0, 0] * dx + M[0, 1] * dy + M[0, 2] * dz
     py = M[1, 0] * dx + M[1, 1] * dy + M[1, 2] * dz
     pz = M[2, 0] * dx + M[2, 1] * dy + M[2, 2] * dz
@@ -159,9 +161,8 @@ def warp_from_grid(img: jnp.ndarray, K_adj: jnp.ndarray, R: jnp.ndarray,
     render path (parallel.tiled_compose) calls this with each device's
     slab of the canvas grid; warp_backward calls it with the full ROI.
 
-    Sampling is four row-gathers from the flattened image (the 2-D
-    advanced-index form lowers to a 45% slower gather on TPU; the two are
-    bit-identical)."""
+    Sampling is four row-gathers from the flattened image (bit-identical
+    to the 2-D advanced-index form)."""
     sx, sy, inb = _source_coords(K_adj, R, corner, scale, kind, yy, xx,
                                  valid_hw)
     H, W = img.shape[:2]
@@ -185,8 +186,8 @@ def _pack_neighbors_u8(img_u8: jnp.ndarray) -> jnp.ndarray:
     """(H, W, 3) uint8 -> ((H-1)*(W-1), 4) uint32: each row packs the 2x2
     bilinear neighborhood of (y, x) with BGR in the low 24 bits of each
     lane. Bilinear taps are then indexable with ONE gather row per output
-    pixel (4.7x faster than four f32 gathers on TPU; bit-exact since
-    uint8 values are exact in f32)."""
+    pixel instead of four f32 gathers (bit-exact since uint8 values are
+    exact in f32)."""
     v = img_u8.astype(jnp.uint32)
     P = v[..., 0] | (v[..., 1] << 8) | (v[..., 2] << 16)
     N = jnp.stack([P[:-1, :-1], P[:-1, 1:], P[1:, :-1], P[1:, 1:]], -1)

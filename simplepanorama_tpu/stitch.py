@@ -10,7 +10,7 @@ R_new = R_init . R_conn); after every addition a FULL LM bundle adjustment
 runs over all cameras added so far (:268-295); finally the K principal
 points are shifted by the integer image half-sizes (:303-307).
 
-TPU-first shape discipline: cameras are renumbered into ADDITION ORDER and
+Shape discipline: cameras are renumbered into ADDITION ORDER and
 matches sorted by activation step, so the live subproblem at any point of
 the schedule is a PREFIX of the padded tables. The schedule is split into
 ~6 equal-work chunks, each compiled at a cropped capacity bucket (matches
@@ -160,8 +160,8 @@ def _incremental_lm(cams0: ba.CamState, active0, data: ba.BAData,
     every chunk of the schedule).
 
     The host driver (below) used to round-trip camera state to the host
-    after every LM run only to re-feed it for the next addition; over a
-    network-attached device each trip costs more than the solve. Here the
+    after every LM run only to re-feed it for the next addition, each
+    trip a host sync. Here the
     greedy order is host-computed metadata (static arrays), and each
     fori_loop step activates one camera, initializes it from its connection
     on-device (inherit focal, zero principal point, SVD rotation init from
@@ -182,10 +182,10 @@ def _incremental_lm(cams0: ba.CamState, active0, data: ba.BAData,
         Kc = ba._K_of(f, cams.ppal[conn])
         Kn_inv = jnp.diag(jnp.stack([1.0 / f, 1.0 / f,
                                      jnp.ones_like(f)]))
-        M = Kn_inv @ H_pair[l] @ Kc
+        M = rotn.mm(Kn_inv, H_pair[l], Kc)
         R_init = rotn.orthogonalize(M)
         R_conn = rotn.rodrigues(cams.rotvec[conn])
-        rv_node = rotn.rotvec_from_matrix(R_init @ R_conn)
+        rv_node = rotn.rotvec_from_matrix(rotn.mm(R_init, R_conn))
         cams = cams._replace(
             focal=cams.focal.at[node].set(f),
             ppal=cams.ppal.at[node].set(0.0),
@@ -235,10 +235,10 @@ def _incremental_lm_bucketed(cams0: ba.CamState, active0, data: ba.BAData,
         f = cams.focal[conn]
         Kc = ba._K_of(f, cams.ppal[conn])
         Kn_inv = jnp.diag(jnp.stack([1.0 / f, 1.0 / f, jnp.ones_like(f)]))
-        M = Kn_inv @ H_pair[l] @ Kc
+        M = rotn.mm(Kn_inv, H_pair[l], Kc)
         R_init = rotn.orthogonalize(M)
         R_conn = rotn.rodrigues(cams.rotvec[conn])
-        rv_node = rotn.rotvec_from_matrix(R_init @ R_conn)
+        rv_node = rotn.rotvec_from_matrix(rotn.mm(R_init, R_conn))
         cams = cams._replace(
             focal=cams.focal.at[node].set(f),
             ppal=cams.ppal.at[node].set(0.0),
@@ -440,8 +440,7 @@ def bundle_adjust_stitching(comp: Component,
             chunks.append((lo_, hi_, n_cap, m_cap))
 
         # double-buffered dispatch: keep up to two chunks in flight so the
-        # per-chunk host sync (one RTT on a network-attached device)
-        # overlaps the device computing the NEXT chunk — cancellation can
+        # per-chunk host sync overlaps the device computing the NEXT chunk — cancellation can
         # still stop the schedule within ~one chunk, and progress ticks on
         # real chunk completions (the dispatch is async; the carry is a
         # device future the next chunk consumes without host round trips)

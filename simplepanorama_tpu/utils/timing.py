@@ -87,8 +87,5 @@ def stage(name: str, timer: Optional[Timer] = None) -> Iterator[None]:
             yield
     finally:
         if os.environ.get("SPT_SYNC_STAGES"):
-            try:
-                _sync_device()
-            except Exception:
-                pass
+            _sync_device()
         t.stop(name)

@@ -1,4 +1,4 @@
-"""Adjacency parity vs the REFERENCE'S OWN CODE (VERDICT r1 item 10).
+"""Adjacency parity vs the REFERENCE'S OWN CODE.
 
 The recorded values below were produced by compiling the reference's
 unmodified matching stack (_homography.cpp + _util.cpp) into a headless
@@ -7,7 +7,7 @@ init_size=700 with pan::config defaults — the reference's panorama::test
 inspection output (/root/reference/src/classes/_panorama.cpp:572-609)
 reproduced exactly. Regenerate with:  bash tools/ref_oracle/build_and_run.sh
 
-Our raw ratio-test counts are not absolutely comparable (the TPU SIFT
+Our raw ratio-test counts are not absolutely comparable (the device SIFT
 keeps a fixed top-1024-by-response keypoint capacity; the reference
 keeps all ~8000), so raw counts are gated on rank correlation; the
 accepted pair SET and the geometric overlap weights must match directly.
@@ -73,7 +73,7 @@ def test_map_adjacency_matches_reference_oracle():
 
 
 # ---------------------------------------------------------------------------
-# Breadth: brocken + front vs the reference oracle (VERDICT r2 item 8).
+# Breadth: brocken + front vs the reference oracle.
 # Recorded fixture: tests/data/adjacency_oracle_bf.json; regenerate with
 #   bash tools/ref_oracle/build_and_run.sh brocken|front
 #

@@ -101,7 +101,7 @@ def test_bench_comm_accounting_shape():
     for k in per:
         assert per[k]["collective_bytes"]["bundle_adjust"] > 0
         # blend collectives charged to the stage that runs them
-        # (VERDICT r4 item 6: the old standalone `blend` key matched no
+        # (the old standalone `blend` key matched no
         # measured stage and its bytes were silently dropped)
         assert per[k]["collective_bytes"]["compositing"] > 0
     assert acc["per_sequence"]["map"]["amdahl_ceiling_efficiency"]

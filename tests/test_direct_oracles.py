@@ -1,5 +1,5 @@
 """Direct unit oracles for the two kernels that were previously only
-exercised end-to-end (VERDICT r3 item 8): ops/edt.py vs
+exercised end-to-end: ops/edt.py vs
 cv2.distanceTransform and exposure.straighten vs a literal port of
 strg::straightenPanorama (/root/reference/src/math/_straightening.cpp:5-51),
 including the up-vector sign case."""

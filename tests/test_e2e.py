@@ -58,7 +58,7 @@ def test_cli_runs(tmp_path):
 def test_checkpoint_resume_recomposites_without_ba(tmp_path, monkeypatch):
     """--save-state / from_state: compositing resumes under CHANGED
     blend/seam settings with features/matching/BA never re-running
-    (VERDICT r3 item 6; SURVEY §5 checkpoint/resume)."""
+    (SURVEY §5 checkpoint/resume)."""
     from simplepanorama_tpu import Panorama, Config
     paths = sorted(glob.glob("/root/reference/results/map/budapest*.jpg"))[:4]
     cfg = Config()

@@ -1,8 +1,8 @@
-"""Golden e2e tests for the full regression corpus (VERDICT r1 item 3):
+"""Golden e2e tests for the full regression corpus:
 brocken (12), front (14), FKH360 (36, 360-degree u-seam), map with
 graph-cut seams, and the stereographic center fix on a real 360 sequence.
 
-Two golden tiers (VERDICT r3 item 4 diagnosis):
+Two golden tiers:
 
   * SHIPPED goldens (/root/reference/results/*.jpg): loose gates only.
     Root cause of the old 0.40 ceiling on front/FKH360: the reference's
@@ -76,7 +76,7 @@ def test_brocken_sequence():
     assert (prev.sum(-1) > 0).mean() > 0.8
     score = ncc_aligned(prev, f"{RES}/brocken/brocken.jpg")
     assert score > 0.6, f"aligned NCC {score:.3f}"
-    # measured 0.97; gate at measured-minus-margin (VERDICT r4 item 7)
+    # measured 0.97; gate at measured-minus-margin
     fresh = ncc_aligned(prev, f"{FRESH}/brocken_400.jpg")
     assert fresh > 0.9, f"NCC vs fresh reference {fresh:.3f}"
 
@@ -92,7 +92,7 @@ def test_front_sequence():
     assert (prev.sum(-1) > 0).mean() > 0.8
     score = ncc_aligned(prev, f"{RES}/front/front.jpg")
     assert score > 0.25, f"aligned NCC {score:.3f}"   # shipped-JPG ceiling ~0.4
-    # measured 0.90; gate at measured-minus-margin (VERDICT r4 item 7)
+    # measured 0.90; gate at measured-minus-margin
     fresh = ncc_aligned(prev, f"{FRESH}/front_400.jpg")
     assert fresh > 0.8, f"NCC vs fresh reference {fresh:.3f}"
 
@@ -115,7 +115,7 @@ def test_map_graphcut_seams(map_stitched):
     # NCC (0.83 measured); 0.5 still rejects any broken seam/geometry
     score = ncc_aligned(prev, f"{RES}/map/map.jpg", max_vshift=0.1)
     assert score > 0.5, f"aligned NCC {score:.3f}"
-    # fresh-reference gate (VERDICT r4 item 7): the reference's own
+    # fresh-reference gate: the reference's own
     # output at THESE settings incl. cut=true (tools/ref_headless)
     fresh_ref = pathlib.Path(FRESH) / "map_cut_400.jpg"
     if fresh_ref.exists():
@@ -159,7 +159,7 @@ def test_fkh360_sequence(fkh_stitched):
 
 @pytest.mark.slow
 def test_map_full_resolution_render(map_stitched):
-    """--full-res smoke (VERDICT r2 item 9): the streaming device path
+    """--full-res smoke: the streaming device path
     (render.fullres) re-renders map at native resolution; geometry scales
     by the resolution ratio and content still matches the golden JPG."""
     p = map_stitched

@@ -1,25 +1,39 @@
-"""Decode fast path + streaming load/extract overlap (VERDICT r4 item 3).
+"""Decode fast path + streaming load/extract overlap.
 
 load_clamped must be behavior-identical to the reference's
 full-decode-then-clamp rule (_image.cpp:29-73) — bit-identical where no
 reduced decode triggers, shape-identical and visually identical where it
 does; the streaming extract path must produce the same feature tables as
-the materialized-list path.
+the materialized-list path. Sources are generated views (utils.synth) at
+the reference sets' 700 x 467 working size, as PNG and as JPEG.
 """
-
-import glob
 
 import numpy as np
 import pytest
 
-RES = "/root/reference/results"
+
+@pytest.fixture(scope="module")
+def views(tmp_path_factory):
+    """Four overlapping 700 x 467 views: (png paths, jpg paths)."""
+    import cv2
+    from simplepanorama_tpu.utils import synth
+    out = tmp_path_factory.mktemp("views")
+    scene = synth.make_scene(0, 2048, 1024, n_shapes=300)
+    s = synth.write_sequence(out, "map", 0, n=4, scene=scene)
+    jpgs = []
+    for p in s.paths:
+        j = p[:-4] + ".jpg"
+        cv2.imwrite(j, cv2.imread(p), [cv2.IMWRITE_JPEG_QUALITY, 95])
+        jpgs.append(j)
+    return s.paths, jpgs
 
 
-def test_probe_size_matches_decode():
+def test_probe_size_matches_decode(views):
     from simplepanorama_tpu import io
-    for path in (sorted(glob.glob(f"{RES}/map/budapest*.jpg"))[:2]
-                 + sorted(glob.glob(f"{RES}/FKH360/resized*.jpg"))[:1]):
+    pngs, jpgs = views
+    for path in pngs[:2] + jpgs[:2]:
         img = io.file_to_array(path)
+        assert img is not None and img.shape == (467, 700, 3), path
         assert io.probe_size(path) == img.shape[:2], path
 
 
@@ -33,14 +47,15 @@ def test_probe_size_png(tmp_path):
     assert io.probe_size(p) == (123, 456)
 
 
-def test_load_clamped_identical_small_source():
+@pytest.mark.parametrize("fmt", [0, 1])
+def test_load_clamped_identical_small_source(views, fmt):
     """Sources under the 2x-reduce threshold take the full-decode path:
     output must be bit-identical to clamp_to_init_size."""
     from simplepanorama_tpu import io
-    path = sorted(glob.glob(f"{RES}/map/budapest*.jpg"))[0]
+    path = views[fmt][0]
     a = io.load_clamped(path, 700)
     b = io.clamp_to_init_size(io.file_to_array(path), 700)
-    assert a.shape == b.shape
+    assert a.shape == b.shape == (467, 700, 3)
     assert np.array_equal(a, b)
 
 
@@ -76,9 +91,9 @@ def test_load_clamped_too_small(tmp_path):
         io.load_clamped(p, 700)
 
 
-def test_pending_load_dims_and_finalize():
+def test_pending_load_dims_and_finalize(views):
     from simplepanorama_tpu import io
-    paths = sorted(glob.glob(f"{RES}/map/budapest*.jpg"))
+    paths = views[1]
     s = io.ImageSet(paths)
     pending = s.load_resized_stream(400, threads=2)
     assert len(pending) == len(paths)
@@ -91,7 +106,7 @@ def test_pending_load_dims_and_finalize():
     assert s.loaded == paths
 
 
-def test_streaming_extract_matches_list_path(monkeypatch):
+def test_streaming_extract_matches_list_path(views, monkeypatch):
     """extract_features(PendingLoad) must equal extract_features(list)
     (streaming runs single-device; force that by disabling the pipeline
     mesh so the virtual 8-device CPU mesh doesn't take the other
@@ -102,7 +117,7 @@ def test_streaming_extract_matches_list_path(monkeypatch):
     from simplepanorama_tpu.parallel import mesh as pmesh
 
     monkeypatch.setattr(pmesh, "PIPELINE_SHARDING", False)
-    paths = sorted(glob.glob(f"{RES}/map/budapest*.jpg"))
+    paths = views[1]
     cfg = Config()
     cfg.init_size = 400
 

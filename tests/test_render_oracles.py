@@ -1,6 +1,6 @@
 """Direct oracle tests for the compositing layer: each device kernel is
 compared against an independent NumPy/OpenCV port of the reference's own
-math (VERDICT r1: the compositing layer was previously tested only
+math (the compositing layer was previously tested only
 transitively through one e2e NCC gate).
 
 Oracles are ports of:

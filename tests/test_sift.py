@@ -121,3 +121,21 @@ def test_gftt_sift_descriptors_match_across_shift():
     db = np.asarray(fb.desc)[np.asarray(fb.valid)]
     sims = da @ db.T
     assert (sims.max(1) > 0.9).mean() > 0.4
+
+
+@pytest.mark.parametrize("env,want", [("123456789", 123456789), (None, None)])
+def test_sift_mem_budget(monkeypatch, env, want):
+    """The SIFT chunk budget: the override when set, else half the host's
+    physical memory on the CPU (whose device reports no byte limit); a
+    chunk at a large working size then stays bounded."""
+    import os
+    from simplepanorama_tpu import features
+    if env is None:
+        monkeypatch.delenv("SPT_SIFT_MEM_BUDGET", raising=False)
+        want = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 2
+    else:
+        monkeypatch.setenv("SPT_SIFT_MEM_BUDGET", env)
+    assert features._sift_mem_budget() == want
+    # one 4000 x 4000 image needs per_img = 4000^2 * 6 * 550 bytes (53 GB)
+    monkeypatch.setenv("SPT_SIFT_MEM_BUDGET", str(100_000_000_000))
+    assert features._sift_chunk_size(8, 4000, 4000, Config()) == 1

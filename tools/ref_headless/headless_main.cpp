@@ -1,5 +1,5 @@
 // Headless driver for the reference pipeline, used to measure the
-// reference's CPU wall-clock per sequence so bench.py can gate the TPU
+// reference's CPU wall-clock per sequence so bench.py can gate the JAX
 // build against a measured baseline instead of a self-relative one.
 //
 // The API shape follows the reference's own disabled headless path at
